@@ -1,69 +1,44 @@
 """Headline benchmark: decoded throughput of the flagship IB LUT decoder.
 
 Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
+  {"metric": ..., "value": N, "unit": ..., "device": {...}, ...}
 
 Scenario: the shared HEADLINE definition
 (informationbottleneckdecodingldpc_tpu/utils/benchmarks.py) — WLAN 802.11n
 N=1296 R=1/2 irregular IB decoder with message alignment, |T|=16, i_max=50,
-fused Pallas backend, all-zeros direct-sampling chain at the 0.8 dB design
-point, batch 2048, 4 Monte-Carlo steps per dispatch. This is byte-identical
-to scripts/bench_matrix.py's ``wlan_ib_fused`` scenario, so BENCH_r*.json and
-results/BENCH_MATRIX.json report the same number up to run-to-run noise.
-
-``vs_baseline``: fraction of the memory/compute speed-of-light for this
-kernel (results/BENCH_MATRIX.json roofline; the reference repo publishes no
-numbers of its own — BASELINE.json.published is empty — so the bound is the
-honest denominator). The batch/steps configuration is included so the number
-reproduces without a tuning grid.
+all-zeros direct-sampling chain at the 0.8 dB design point, batch 4096,
+compiled by XLA. Exits without a number when JAX finds no GPU.
 """
 
 import json
 import os
-
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache"),
-)
-
-REPO = os.path.dirname(os.path.abspath(__file__))
-
-
-def speed_of_light_bps() -> float | None:
-    """WLAN IB fused speed-of-light from the committed roofline, if present."""
-    path = os.path.join(REPO, "results", "BENCH_MATRIX.json")
-    try:
-        with open(path) as f:
-            roofline = json.load(f)["roofline"]
-        roof = roofline.get("wlan_ib_fused") or roofline["wlan_ib"]
-        return float(roof["speed_of_light_coded_mbps"]) * 1e6
-    except (OSError, KeyError, ValueError):
-        return None
 
 
 def main():
     from informationbottleneckdecodingldpc_tpu.utils.benchmarks import (
         HEADLINE,
         build_headline_sim,
-        measure_sim_throughput,
+        require_gpu,
+        time_sim_steps,
+    )
+    from informationbottleneckdecodingldpc_tpu.utils.compile_cache import (
+        enable_compile_cache,
     )
 
+    enable_compile_cache()
+    device = require_gpu()
     sim = build_headline_sim()
     reps = int(os.environ.get("BENCH_REPS", "6"))
-    coded_bps = measure_sim_throughput(sim, HEADLINE["ebn0_db"], dispatches=reps)
-
-    sol = speed_of_light_bps()
+    t = time_sim_steps(sim, HEADLINE["ebn0_db"], dispatches=reps)
     print(
         json.dumps(
             {
                 "metric": "wlan_ib_lut_decode_coded_throughput",
-                "value": round(coded_bps / 1e6, 4),
-                "unit": "Mbit/s/chip",
-                "vs_baseline": (
-                    round(coded_bps / sol, 4) if sol else None
-                ),
-                "baseline": "fraction of roofline speed-of-light "
-                "(results/BENCH_MATRIX.json wlan_ib)",
+                "value": t["coded_bits_per_s"] / 1e6,
+                "unit": "Mbit/s/card",
+                "device": device,
+                "step_s": t["step_s"],
+                "compile_s": t["compile_s"],
                 "batch": HEADLINE["batch"],
                 "steps_per_dispatch": HEADLINE["steps_per_dispatch"],
                 "ebn0_db": HEADLINE["ebn0_db"],

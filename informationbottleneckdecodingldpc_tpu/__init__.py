@@ -1,6 +1,6 @@
-"""TPU-native Information-Bottleneck LDPC decoding framework.
+"""Information-Bottleneck LDPC decoding framework in JAX.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of the
+A from-scratch JAX/XLA reimplementation of the capabilities of the
 reference repo ``mx-strk/InformationBottleneckDecodingLDPC`` (see SURVEY.md):
 
 - ``codes``      parity-check matrices: AList/.npy/.npz loaders, 802.11n and
@@ -12,13 +12,12 @@ reference repo ``mx-strk/InformationBottleneckDecodingLDPC`` (see SURVEY.md):
 - ``channel``    BPSK mapping, AWGN channel, information-optimum channel
                  output quantizer (all on-device, ``jax.random`` PRNG).
 - ``encode``     GF(2) encoder (host factorization once; batched XOR
-                 substitution in C++ and an MXU matmul path on TPU).
+                 substitution in C++ and jittable device encoders).
 - ``construct``  discrete density evolution (regular + irregular with message
                  alignment) producing integer trellis lookup tables.
 - ``decode``     decoders as pure functions: discrete IB LUT decoder,
-                 belief propagation, min-sum; jnp reference + Pallas fast path.
-- ``ops``        Pallas TPU kernels and jnp building blocks for the hot
-                 message-passing loops.
+                 belief propagation, min-sum, compiled by XLA.
+- ``ops``        jnp building blocks for the hot message-passing loops.
 - ``parallel``   mesh/sharding helpers (shard_map batch parallelism, psum'd
                  BER counters and syndrome checks).
 - ``sim``        Monte-Carlo BER engine with SNR sweep + resumable state.

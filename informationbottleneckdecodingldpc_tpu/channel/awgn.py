@@ -16,8 +16,7 @@ def awgn_transmit(
 ) -> jnp.ndarray:
     """y = x + n with real (or complex) Gaussian noise of variance sigma2.
 
-    Complex symbols are I/Q pairs (trailing axis of 2, see channel.modulation;
-    the TPU backend has no complex dtypes): with ``complex_noise`` each
+    Complex symbols are I/Q pairs (trailing axis of 2, see channel.modulation): with ``complex_noise`` each
     component receives variance sigma2/2, matching the reference's complex
     channel (AWGN_channel.py:40-42).
     """

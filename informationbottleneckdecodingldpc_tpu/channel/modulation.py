@@ -1,6 +1,6 @@
 """Modulation mappings and transmitters (BPSK, square QAM, MPSK).
 
-TPU-native equivalents of the reference transmitters
+JAX equivalents of the reference transmitters
 (AWGN_Channel_Transmission/LDPC_Transmitter.py:14-215 encoded,
 AWGN_Channel_Transmission/Transmitter.py:14-118 uncoded): the bit->symbol
 maps are pure jittable functions over ``[n_bits, batch]`` arrays, and the
@@ -21,8 +21,7 @@ themselves are reproduced for parity of the transmit side:
 - MPSK (LDPC_Transmitter.py:203-215): groups of ``log2(M)`` bits, MSB first,
   mapped through the encoding table to phases ``exp(2j*pi*k/M)``.
 
-TPU note: complex dtypes are unsupported on the TPU backend, so complex
-symbols are represented as I/Q pairs — float32 arrays with a trailing
+Complex symbols are represented as I/Q pairs — float32 arrays with a trailing
 dimension of 2 ([n_symbols, batch, 2]). ``iq_to_complex`` converts on host.
 """
 

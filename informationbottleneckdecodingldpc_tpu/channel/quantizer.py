@@ -1,6 +1,6 @@
 """Information-optimum AWGN channel-output quantizer for BPSK.
 
-TPU-native counterpart of the reference's ``AWGN_Channel_Quantizer``
+JAX counterpart of the reference's ``AWGN_Channel_Quantizer``
 (AWGN_Channel_Transmission/AWGN_Quantizer_BPSK.py): the quantizer tables are
 constructed once on the host (fine grid + exact DP symmetric IB instead of
 randomized sIB), then all hot-loop operations — threshold quantization, direct
@@ -123,9 +123,8 @@ def device_tables(tables: QuantizerTables) -> DeviceQuantizerTables:
 # ---------------------------------------------------------------------------
 
 def _threshold_count(thresholds: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
-    """#{w : x > thresholds[w]} as an accumulated compare loop (whole-plane
-    VPU ops; avoids materializing an [.., T] broadcast and avoids gathers,
-    which lower to scalar loops on TPU)."""
+    """#{w : x > thresholds[w]} as an accumulated compare loop (elementwise
+    ops on whole planes; avoids materializing an [.., T] broadcast)."""
     t = jnp.zeros(x.shape, jnp.int32)
     for w in range(thresholds.shape[0]):
         t = t + (x > thresholds[w]).astype(jnp.int32)

@@ -13,17 +13,10 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import os
-
-if "cpu" in os.environ.get("JAX_PLATFORMS", "").split(","):
-    # Respect JAX_PLATFORMS=cpu even when an accelerator plugin would
-    # otherwise become the default backend (see cli/simulate.py).
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 from ..construct import build_decoder_config
 from ..models import get_model
+from ..utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -47,6 +40,7 @@ def main(argv=None):
                         "decoder_config_generation.py:42-61")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     spec = get_model(args.model)
     ebn0 = args.ebn0 if args.ebn0 is not None else spec.design_ebn0_db

@@ -13,22 +13,13 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import os
-
-if "cpu" in os.environ.get("JAX_PLATFORMS", "").split(","):
-    # Respect JAX_PLATFORMS=cpu even when an accelerator plugin would
-    # otherwise register itself as the default backend (tests/conftest.py
-    # belt-and-braces; a CPU-pinned subprocess must never contend for the
-    # chip — round-4 verdict weak #6).
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 from ..codes import TannerGraph
 from ..construct import DecoderConfig
 from ..decode import DecodeLayout, DeviceTrellis
 from ..encode import LDPCEncoder
 from ..models import get_model
+from ..utils.compile_cache import enable_compile_cache
 from ..sim import BERSimulator, SweepController, SweepSchedule
 from ..sim.results import export_mat, export_npz, export_plot
 
@@ -80,6 +71,7 @@ def main(argv=None):
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     results_path = args.results
     is_primary = True

@@ -1,9 +1,9 @@
-"""Tanner-graph edge layout for vectorized TPU message passing.
+"""Tanner-graph edge layout for vectorized message passing.
 
 The reference stores messages in per-node "inbox" vectors addressed with
 start-offset + target-cell indirection computed in four duplicated copies of
 ``map_node_connections`` (discrete_LDPC_decoder.py:88-130,
-discrete_LDPC_decoder_irreg.py:121-170). The TPU-native equivalent below keeps
+discrete_LDPC_decoder_irreg.py:121-170). The equivalent below keeps
 the same two canonical edge orders —
 
 - **CN order**: edges enumerated row-by-row of H (CSR), i.e. the check-node
@@ -13,7 +13,7 @@ the same two canonical edge orders —
   variable-node inbox layout.
 
 — but replaces per-work-item pointer chasing with two global permutation
-vectors (pure gathers, XLA/Pallas friendly) plus *degree-grouped* dense index
+vectors (pure gathers, XLA friendly) plus *degree-grouped* dense index
 matrices so each same-degree group of nodes is processed as one dense
 ``[num_nodes_of_degree, degree]`` block with static shapes under ``jit``.
 """

@@ -27,14 +27,10 @@ class DecodeResult:
 
     ``outputs``: [n_vars, batch] posterior quantity (cluster index for the IB
     LUT decoder, LLR for BP/min-sum) in natural variable order.
-    ``iterations``: scalar executed in-loop iteration count. Backend
-    semantics differ by early-exit granularity: the XLA paths run the whole
-    batch in lockstep and report that single count; the fused Pallas kernels
-    exit per batch-*tile* and report the per-codeword MEAN exit iteration
-    (float). Identical BER either way, but ``mean_iterations`` in results is
-    a batch-lockstep count for backend='xla' and a true per-codeword average
-    for backend='fused' — don't compare across backends. With
-    ``early_exit=False`` both report ``max_iters - 1``.
+    ``iterations``: scalar executed in-loop iteration count. The whole
+    batch runs in lockstep until every codeword has converged, so this is
+    one count for the batch; with ``early_exit=False`` it is
+    ``max_iters - 1``.
     ``unsatisfied``: [batch] unsatisfied-check count at exit.
     """
 
@@ -64,10 +60,9 @@ def gather_node_values_per_group(
 ) -> list[jnp.ndarray]:
     """Pre-gather per-VN-group node values (e.g. channel messages).
 
-    The row gather costs ~as much as a whole LUT fold on TPU; hoisting it out
-    of the decode loop (channel values are loop-invariant) pays it once per
-    decode instead of once per iteration, and the run-decomposed plan turns
-    it into slice copies for structured codes.
+    Channel values are loop-invariant, so this row move is hoisted out of
+    the decode loop and paid once per decode instead of once per iteration;
+    the run-decomposed plan turns it into slice copies for structured codes.
     """
     ordered = layout.vn_gather_plan.apply(node_values)
     out, off = [], 0
@@ -116,7 +111,7 @@ def unsatisfied_checks(layout: DecodeLayout, cn_view_bits: jnp.ndarray) -> jnp.n
     total = jnp.zeros((batch,), dtype=jnp.int32)
     for grp in layout.cn_groups:
         # XOR across the group's contiguous slot-major planes (elementwise
-        # lane ops on whole planes; avoids a strided cross-plane reduction).
+        # ops on whole planes; avoids a strided cross-plane reduction).
         n = grp.num_nodes
         parity = cn_view_bits[grp.offset : grp.offset + n]
         for j in range(1, grp.degree):

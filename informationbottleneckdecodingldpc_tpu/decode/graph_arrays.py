@@ -1,7 +1,7 @@
 """Device-resident decode layout: degree-grouped, slot-major edge ordering.
 
 The reference's OpenCL decoders walk per-node inbox pointers inside each work
-item (kernels_template.cl). The TPU layout instead pre-sorts edges so that
+item (kernels_template.cl). This layout instead pre-sorts edges so that
 
 - all edges of same-degree nodes are contiguous, organized **slot-major**:
   a degree-d group's block holds d planes of ``num_nodes`` rows; plane j is
@@ -10,8 +10,8 @@ item (kernels_template.cl). The TPU layout instead pre-sorts edges so that
 - moving messages between the CN view and the VN view is one global
   permutation. For structured codes (quasi-cyclic 802.11n, q-group DVB-S2
   IRA) the slot-major ordering makes that permutation a concatenation of a
-  few hundred long contiguous **runs**, executed as static slice copies at
-  HBM bandwidth; unstructured codes fall back to a row gather.
+  few hundred long contiguous **runs**, executed as static slice copies;
+  unstructured codes fall back to a row gather.
 
 All index arrays are built in numpy from :class:`TannerGraph` once.
 """
@@ -52,11 +52,10 @@ class PermutationPlan:
        one coalesce into a **block transpose**: ``dst`` block =
        ``src[t:t+l*d].reshape(l, d).T`` — the class-major <-> natural node
        moves of q-group (DVB-S2 IRA) codes are exactly this shape, and XLA
-       lowers a [l, d] transpose far better than l strided slices or a row
-       gather (gathers over the sublane dim lower to scalar loops on TPU).
+       lowers one [l, d] transpose better than l strided slices.
 
-    The fused Pallas kernel consumes only stride-1 runs (``all_unit_stride``);
-    the XLA path applies the full mix.
+    Whether this beats the single row gather (``perm``) on a given device is
+    measured, not assumed (scripts/micro_bench.py).
     """
 
     perm: jnp.ndarray  # [n] int32 (fallback row gather)
@@ -166,9 +165,8 @@ class PermutationPlan:
             i += 1
 
         # Leftover short non-unit-stride runs (stray boundary links the greedy
-        # merged, not absorbed into a transpose) are no better than singletons
-        # and would cost stride-1 purity (the fused kernel consumes only
-        # unit-stride runs): split them back up.
+        # merged, not absorbed into a transpose) are no better than singletons:
+        # split them back up.
         MIN_STRIDED_LEN = 4
         f_dst, f_src, f_len, f_stride = [], [], [], []
         for idx in run_keep:
@@ -205,10 +203,6 @@ class PermutationPlan:
     @property
     def num_transposes(self) -> int:
         return int(self.tr_ops.shape[0])
-
-    @property
-    def all_unit_stride(self) -> bool:
-        return self.num_transposes == 0 and bool((self.run_stride == 1).all())
 
     def apply(self, x: jnp.ndarray) -> jnp.ndarray:
         """Return x[perm] along axis 0."""
@@ -278,8 +272,8 @@ class DecodeLayout:
     # Inverse node permutation to assemble outputs in natural variable order.
     vn_node_unperm: jnp.ndarray  # [n_vars] int32
 
-    # Run-decomposed row-move plans (row gathers lower to slow scalar loops
-    # on TPU; for structured codes these are a few hundred slice copies):
+    # Run-decomposed row-move plans (for structured codes a few hundred
+    # slice copies instead of a row gather):
     #   seed_plan:       ch[n_vars] -> cn_view[n_edges] channel seeding
     #   vn_gather_plan:  ch[n_vars] -> per-VN-group node values (group order)
     #   vn_unperm_plan:  group-order node outputs -> natural variable order

@@ -1,6 +1,6 @@
 """Discrete Information-Bottleneck lookup-table decoder.
 
-TPU-native equivalent of the reference's integer LUT decoders
+Vectorized equivalent of the reference's integer LUT decoders
 (Discrete_LDPC_decoding/discrete_LDPC_decoder.py:202-295 regular,
 discrete_LDPC_decoder_irreg.py:245-341 irregular). Device-kernel semantics
 are reproduced — they generated the published BER curves (SURVEY.md §7.4):
@@ -61,15 +61,11 @@ class DeviceTrellis:
     vn_rest: jnp.ndarray  # [i_max, d_v_max-1, T, T]
     matching_cn: jnp.ndarray | None
     matching_vn: jnp.ndarray | None
-    # Host-side source tables (kept so the fused Pallas kernel can re-pack
-    # them; not used in traced code).
-    host: TrellisTables | None = None
 
     @classmethod
     def from_tables(cls, t: TrellisTables, use_matching: bool = True) -> "DeviceTrellis":
         as_i32 = lambda a: jnp.asarray(np.asarray(a), dtype=jnp.int32)
         return cls(
-            host=t,
             t_channel=t.cardinality_t_channel,
             t_decoder=t.cardinality_t_decoder,
             i_max=t.i_max,

@@ -1,6 +1,6 @@
 """Min-sum decoder (continuous-domain benchmark).
 
-TPU-native equivalent of the reference's
+Vectorized equivalent of the reference's
 ``Min_Sum_Decoder_class_irregular.decode_OpenCL_min_sum``
 (Continous_LDPC_Decoding/min_sum_decoder_irreg.py:221-287): seed check-node
 inboxes with channel LLRs, then loop (CN min-sum update -> VN sum update ->

@@ -1,4 +1,4 @@
-"""GF(2) LDPC encoding: host factorization + batched native/TPU encode."""
+"""GF(2) LDPC encoding: host factorization + batched native/device encode."""
 
 from .gf2 import gf2_factorize_packed, is_full_diag_triangular
 from .encoder import LDPCEncoder

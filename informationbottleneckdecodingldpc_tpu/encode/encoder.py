@@ -9,10 +9,10 @@ Execution paths:
 - host: batched, bit-packed substitution via the native C++ kernels
   (native/gf2kernels.cpp; replaces the reference's Cython ``GF2MatrixMul_c``),
   with a pure-numpy fallback;
-- device (TPU): jit-compatible ``encode_device`` for accumulator (staircase)
+- device: jit-compatible ``encode_device`` for accumulator (staircase)
   codes — A-multiply as gather + XOR-reduce, parity via an associative
-  prefix-XOR scan — and for small B via a dense GF(2) inverse matmul on the
-  MXU. Arbitrary B falls back to the host path.
+  prefix-XOR scan — and for small B via a dense GF(2) inverse, applied as an
+  integer matmul mod 2. Arbitrary B falls back to the host path.
 """
 
 from __future__ import annotations
@@ -175,7 +175,7 @@ class LDPCEncoder:
             return encode_device
 
         if m <= 4096:
-            # Dense GF(2) inverse of B once on host, then MXU matmul.
+            # Dense GF(2) inverse of B once on host, then an integer matmul.
             Bd = self.B.toarray().astype(np.uint8)
             inv = _gf2_dense_inverse(Bd)
             if inv is None:

@@ -1,4 +1,4 @@
-"""Compute building blocks: jnp reference ops + Pallas TPU kernels."""
+"""Compute building blocks: the node-update folds in jnp."""
 
 from .lut_fold import (
     pairwise_lookup,

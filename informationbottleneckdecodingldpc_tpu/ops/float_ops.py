@@ -74,8 +74,8 @@ def cn_minsum_leave_one_out(msgs: jnp.ndarray) -> jnp.ndarray:
 
 def sum_planes(msgs: jnp.ndarray) -> jnp.ndarray:
     """Sequential left-fold sum over axis 0 ((m0+m1)+m2)+... — an explicit
-    reduction order shared with the Pallas HBM float kernel so both paths
-    round identically (jnp.sum's grouping is compiler-chosen)."""
+    reduction order, so every backend rounds identically (jnp.sum's grouping
+    is compiler-chosen)."""
     s = msgs[0]
     for k in range(1, msgs.shape[0]):
         s = s + msgs[k]
@@ -100,9 +100,8 @@ def minsum_leave_one_out_planes(planes: list) -> list:
     ``min_sum_op`` prefix/suffix fold: every output is (product of signs
     excluding j) x (min magnitude excluding j), and both factors are exact
     regardless of evaluation order — min-sum never creates new values.
-    O(~9d) cheap VPU ops per node instead of the pairwise fold's
-    3(d-2) applications of the 7-op ``min_sum_op`` (the fused float
-    kernel's dominant cost at d=7-8).
+    O(~9d) cheap elementwise ops per node instead of the pairwise fold's
+    3(d-2) applications of the 7-op ``min_sum_op``.
     """
     d = len(planes)
     if d == 1:

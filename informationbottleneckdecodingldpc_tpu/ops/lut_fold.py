@@ -6,21 +6,22 @@ processed as one dense ``[nodes, degree, batch]`` tensor; the per-output
 chains share the full-chain prefix states, cutting lookups to ~d^2/2, and
 every lookup is fully vectorized over the [nodes, batch] plane.
 
-TPU lookup strategy (v5e measurements, 4.8M-element planes):
+Lookup lowerings (``set_lookup_mode``):
 
-- XLA lowers per-element gathers into tiny LUTs to a scalar loop
-  (~0.12 G lookups/s) — unusable. CPU keeps the gather ('take' mode).
-- A |T0|x|T1| lookup evaluated as a VPU compare-select tree ('select' mode)
-  runs at ~2.5 G standalone / ~9 G lookups/s chained.
-- 'packed' mode (TPU default): pack each LUT *column* (fixed second operand
-  b) into ceil(T0/per) int32 words of ``field_bits``-bit fields; selecting
-  the column by b costs |T1| compares + |T1|*W selects, and each chained
-  lookup is then one word select + a per-lane variable shift + mask
-  (~50 G lookups/s once columns amortize). The leave-one-out chains reuse
-  each (step-LUT, message) column across all outputs — the fold functions
-  cache them — so the column cost amortizes over ~d/2 chain steps.
-  Int32 wrapping is harmless: packing wraps two's-complement bit patterns,
-  the arithmetic right shift's sign-extension is masked off.
+- 'take' (default): one gather into the flattened LUT per lookup. The LUTs
+  are at most 32x32 entries, so on the GPU every gather hits cache.
+- 'select': a |T0|x|T1| compare-select tree, no gather.
+- 'packed': each LUT *column* (fixed second operand b) packed into
+  ceil(T0/per) int32 words of ``field_bits``-bit fields; selecting the
+  column by b costs |T1| compares + |T1|*W selects, and each chained lookup
+  is then one word select + a per-lane variable shift + mask. The
+  leave-one-out chains reuse each (step-LUT, message) column across all
+  outputs — the fold functions cache them. Int32 wrapping is harmless:
+  packing wraps two's-complement bit patterns, the arithmetic right shift's
+  sign-extension is masked off.
+
+All three are bit-exact against each other (tests/test_decoders.py); the
+gather-free ones are kept to be timed against 'take' on the chip.
 
 Semantics contract (must match the reference trellis layout, SURVEY.md §3.1):
 a node op folds its input sequence strictly left-to-right through per-step
@@ -30,74 +31,14 @@ using steps 0..d-3 in order.
 
 from __future__ import annotations
 
-import dataclasses
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-_FORCE_MODE: str | None = None  # test hook: 'take' | 'select' | 'packed' | None
-
-# Optional VPU element-op counter (roofline accounting, bench.py): when set
-# to a dict, the packed-lookup primitives add their exact per-element op
-# counts (compare / select / shift-mask) during tracing. Shapes are static,
-# so tracing once (jax.eval_shape) yields the precise op count per call.
-_OP_COUNTS: dict | None = None
-
-
-class counting_ops:
-    """Context manager: collect exact element counts of every packed-lookup
-    *primitive* traced inside, keyed by hardware-cost class:
-
-      ("col", W, T1): column builds — one |T1|-way compare-select of W words
-      ("ext", W, fb): extracts — one W-way word select + field shift/mask
-
-    The roofline (scripts/bench_matrix.py) divides these by per-class peak
-    rates measured with Pallas microkernels of the same primitives
-    (utils/peaks.py), so a kernel built from these primitives cannot beat
-    the bound. Usage: ``with counting_ops() as c: jax.eval_shape(...)``.
-    """
-
-    def __enter__(self):
-        global _OP_COUNTS
-        self._prev = _OP_COUNTS
-        _OP_COUNTS = {}
-        return _OP_COUNTS
-
-    def __exit__(self, *exc):
-        global _OP_COUNTS
-        _OP_COUNTS = self._prev
-        return False
-
-
-def _count(key: tuple, n: int) -> None:
-    if _OP_COUNTS is not None:
-        _OP_COUNTS[key] = _OP_COUNTS.get(key, 0) + n
-
-
-def _numel(x) -> int:
-    import numpy as np
-
-    return int(np.prod(x.shape)) if hasattr(x, "shape") else 1
-
-
-@dataclasses.dataclass
-class PackedLut:
-    """A pairwise LUT pre-packed into int32 words (see ``_pack_lut``).
-
-    ``words``: [W, T1] — field ``a`` of column ``b`` is ``lut[a, b]``.
-    Passing these instead of raw [T0, T1] tables forces the packed lowering
-    and lets callers (the fused Pallas kernel) pack once on the host instead
-    of per trace.
-    """
-
-    words: jnp.ndarray
-    t1: int
-    fb: int
+_FORCE_MODE: str | None = None  # 'take' | 'select' | 'packed' | None
 
 
 def set_lookup_mode(mode: str | None) -> None:
-    """Force the lookup lowering ('take' | 'select' | 'packed'); None = auto."""
+    """Force the lookup lowering ('take' | 'select' | 'packed'); None = 'take'."""
     global _FORCE_MODE
     if mode not in (None, "take", "select", "packed"):
         raise ValueError(mode)
@@ -105,12 +46,9 @@ def set_lookup_mode(mode: str | None) -> None:
 
 
 def _mode(vmax: int | None) -> str:
-    if _FORCE_MODE is not None:
-        mode = _FORCE_MODE
-    else:
-        mode = "packed" if jax.default_backend() == "tpu" else "take"
+    mode = _FORCE_MODE or "take"
     if mode == "packed" and (vmax is None or vmax > 256):
-        return "select" if jax.default_backend() == "tpu" else "take"
+        return "take"
     return mode
 
 
@@ -120,19 +58,12 @@ def _field_bits(vmax: int) -> int:
     packing for 16 < vmax <= 32: the value's low nibble in fb=4 words plus
     its high bit in one fb=1 word — ceil(T0/8)+ceil(T0/32) words per column
     instead of byte-packing's ceil(T0/4), which cuts the dominant
-    column-select cost ~40% for |T|=32 decoders (round-2 verdict #6)."""
+    column-select cost ~40% for |T|=32 decoders."""
     if vmax <= 16:
         return 4
     if vmax <= 32:
         return 5
     return 8
-
-
-def words_per_column(t0: int, fb: int) -> int:
-    """Packed words per LUT column for an ``a``-domain of size t0."""
-    if fb == 5:
-        return -(-t0 // 8) + (-(-t0 // 32))
-    return -(-t0 // (32 // fb))
 
 
 def pairwise_lookup(
@@ -172,52 +103,6 @@ def vector_lookup(
     return jnp.take(row, idx)
 
 
-def vector_lookup_words(
-    words: jnp.ndarray, idx: jnp.ndarray, fb: int
-) -> jnp.ndarray:
-    """out = row[idx] where ``words`` is the pre-packed row ([W] int32)."""
-    cols = [words[w] + jnp.zeros_like(idx) for w in range(words.shape[0])]
-    return _extract(cols, idx, fb)
-
-
-def pack_lut_batch(tables, vmax: int):
-    """Host-side batch packing: [..., T0, T1] int tables -> [..., W, T1]
-    int32 words (same packing as ``_pack_lut``, vectorized over leading
-    dims). For 1-D rows (matching vectors) pass [..., T0, 1] and take
-    ``[..., :, 0]``."""
-    import numpy as np
-
-    tables = np.asarray(tables)
-    fb = _field_bits(vmax)
-    if fb == 5:  # split packing: low nibbles + high-bit plane (see _field_bits)
-        return np.concatenate(
-            [_pack_batch(tables & 15, 4), _pack_batch(tables >> 4, 1)],
-            axis=-2,
-        )
-    return _pack_batch(tables, fb)
-
-
-def _pack_batch(tables, fb: int):
-    import numpy as np
-
-    per = 32 // fb
-    t0, t1 = tables.shape[-2], tables.shape[-1]
-    w = -(-t0 // per)
-    pad = w * per - t0
-    if pad:
-        tables = np.concatenate(
-            [tables, np.zeros(tables.shape[:-2] + (pad, t1), tables.dtype)],
-            axis=-2,
-        )
-    r = tables.reshape(tables.shape[:-2] + (w, per, t1)).astype(np.int64)
-    weights = (1 << (fb * np.arange(per, dtype=np.int64)))[:, None]
-    out = (r * weights).sum(axis=-2)
-    # Wrap to two's-complement int32 (packing may spill into the sign bit).
-    return (out & 0xFFFFFFFF).astype(np.uint32).view(np.int32).reshape(
-        tables.shape[:-2] + (w, t1)
-    )
-
-
 # ---------------------------------------------------------------------------
 # Packed-column machinery
 
@@ -254,11 +139,8 @@ def _select_columns(packed: jnp.ndarray, b: jnp.ndarray) -> list[jnp.ndarray]:
     """Column (over b) of the packed LUT per element: W arrays like b.
 
     The ``b == j`` compare is computed inside the j-loop and consumed
-    immediately by all W selects, so its live set is ONE plane — a cached
-    list of |T1| compare planes per operand held ~300 MB of VMEM for the
-    N=8000 code's node groups and blew the fused kernel's budget."""
+    immediately by all W selects, so its live set is one plane, not |T1|."""
     w, t1 = packed.shape
-    _count(("col", w, t1), _numel(b))
     cols = [jnp.zeros(b.shape, jnp.int32) for _ in range(w)]
     for j in range(t1):
         bj = b == j
@@ -274,7 +156,6 @@ def _extract(cols: list[jnp.ndarray], a: jnp.ndarray, field_bits: int) -> jnp.nd
     (fb=4), cols[-1] its high bit (fb=1, 32 bits/word)."""
     if field_bits == 5:
         low_cols, hi = cols[:-1], cols[-1]
-        _count(("ext", len(cols), 5), _numel(a))
         if len(low_cols) == 1:
             word = low_cols[0]
         else:
@@ -287,7 +168,6 @@ def _extract(cols: list[jnp.ndarray], a: jnp.ndarray, field_bits: int) -> jnp.nd
         return low | (high << 4)
     per = 32 // field_bits
     shift_bits = per.bit_length() - 1  # per is 8 or 4
-    _count(("ext", len(cols), field_bits), _numel(a))
     if len(cols) == 1:
         word = cols[0]
     else:
@@ -301,8 +181,7 @@ def _extract(cols: list[jnp.ndarray], a: jnp.ndarray, field_bits: int) -> jnp.nd
 class _Stepper:
     """Chain-step evaluator with per-(LUT, message) column caching.
 
-    ``luts``: the per-step pairwise LUTs — raw [T0, T1] arrays, or
-    :class:`PackedLut` (pre-packed, forces the packed lowering);
+    ``luts``: the per-step pairwise [T0, T1] LUTs;
     ``operands``: the b-side inputs (messages / channel values).
     ``step(lut_idx, state, op_idx)`` returns luts[lut_idx][state,
     operands[op_idx]].
@@ -311,17 +190,10 @@ class _Stepper:
     def __init__(self, luts: list, operands: list[jnp.ndarray], vmax: int | None):
         self.luts = luts
         self.operands = operands
-        prepacked = any(isinstance(l, PackedLut) for l in luts)
-        self.mode = "packed" if prepacked else _mode(vmax)
+        self.mode = _mode(vmax)
         if self.mode == "packed":
-            if prepacked:
-                self.fb = next(l.fb for l in luts if isinstance(l, PackedLut))
-                self.packed = [l.words for l in luts]
-                self._t1s = [l.t1 for l in luts]
-            else:
-                self.fb = _field_bits(vmax)
-                self.packed = [_pack_lut(l, self.fb) for l in luts]
-                self._t1s = [l.shape[1] for l in luts]
+            self.fb = _field_bits(vmax)
+            self.packed = [_pack_lut(l, self.fb) for l in luts]
             self._cols: dict[tuple[int, int], list[jnp.ndarray]] = {}
 
     def step(self, lut_idx: int, state: jnp.ndarray, op_idx: int) -> jnp.ndarray:
@@ -347,7 +219,7 @@ class _Stepper:
 def _pairwise_lookup_select(
     lut: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray
 ) -> jnp.ndarray:
-    """VPU compare-select evaluation of lut[a, b] (no gather).
+    """Compare-select evaluation of lut[a, b] (no gather).
 
     out = sum_i (a == i) * row_i, row_i = sum_j (b == j) * lut[i, j]; the
     where-chains compile to lane-wide selects and the scalar lut[i, j] reads
@@ -373,17 +245,14 @@ def cn_lut_leave_one_out(
 ):
     """Check-node trellis update for one degree group.
 
-    msgs: [d, n, batch] int (slot-major planes) or a list of d [n, batch]
-    planes; step_luts: d-2 pairwise LUTs (step 0 combines the first two
-    messages; raw or :class:`PackedLut`). Returns [d, n, batch] (or a plane
-    list, matching the input kind): output plane j = fold of all messages
-    except j.
+    msgs: [d, n, batch] int (slot-major planes); step_luts: d-2 pairwise
+    LUTs (step 0 combines the first two messages). Returns [d, n, batch]:
+    output plane j = fold of all messages except j.
     """
-    as_planes = isinstance(msgs, (list, tuple))
-    m = list(msgs) if as_planes else [msgs[k] for k in range(msgs.shape[0])]
+    m = [msgs[k] for k in range(msgs.shape[0])]
     d = len(m)
     if d == 2:
-        return [m[1], m[0]] if as_planes else jnp.stack([m[1], m[0]], axis=0)
+        return jnp.stack([m[1], m[0]], axis=0)
 
     st = _Stepper(step_luts, m, vmax)
     outs: list = [None] * d
@@ -406,7 +275,7 @@ def cn_lut_leave_one_out(
         s0 = st.step(k - 2, s0, k)
         s1 = st.step(k - 2, s1, k)
     outs[0], outs[1] = s0, s1
-    return outs if as_planes else jnp.stack(outs, axis=0)
+    return jnp.stack(outs, axis=0)
 
 
 def vn_lut_leave_one_out(
@@ -419,18 +288,16 @@ def vn_lut_leave_one_out(
     """Variable-node trellis update for one degree group.
 
     ch: [n, batch] channel clusters; msgs: [d, n, batch] incoming CN messages
-    (slot-major planes) or a list of d planes. Output plane j folds (ch, all
-    messages except j): first step uses ``first_lut`` (channel x message
-    domain), later steps ``rest_luts`` in order (kernels_template.cl:135-166).
-    Degree-1 nodes forward the channel value
-    (kernels_template_irreg.cl:131-136). Returns planes matching the input
-    kind.
+    (slot-major planes). Output plane j folds (ch, all messages except j):
+    first step uses ``first_lut`` (channel x message domain), later steps
+    ``rest_luts`` in order (kernels_template.cl:135-166). Degree-1 nodes
+    forward the channel value (kernels_template_irreg.cl:131-136). Returns
+    [d, n, batch].
     """
-    as_planes = isinstance(msgs, (list, tuple))
-    m = list(msgs) if as_planes else [msgs[k] for k in range(msgs.shape[0])]
+    m = [msgs[k] for k in range(msgs.shape[0])]
     d = len(m)
     if d == 1:
-        return [ch] if as_planes else ch[None, :, :]
+        return ch[None, :, :]
     # LUT list: 0 = first (channel x msg), 1.. = rest.
     st = _Stepper([first_lut] + list(rest_luts), m, vmax)
     outs: list = [None] * d
@@ -450,7 +317,7 @@ def vn_lut_leave_one_out(
     for k in range(2, d):
         s0 = st.step(k - 1, s0, k)
     outs[0] = s0
-    return outs if as_planes else jnp.stack(outs, axis=0)
+    return jnp.stack(outs, axis=0)
 
 
 def vn_lut_full_fold(
@@ -461,11 +328,9 @@ def vn_lut_full_fold(
     vmax: int | None = None,
 ) -> jnp.ndarray:
     """Decision mapping: fold channel plus *all* d messages
-    (calc_varnode_output, kernels_template.cl:241-290). msgs is [d, n, batch]
-    or a list of d planes; returns [n, batch]."""
-    m = list(msgs) if isinstance(msgs, (list, tuple)) else [
-        msgs[k] for k in range(msgs.shape[0])
-    ]
+    (calc_varnode_output, kernels_template.cl:241-290). msgs is
+    [d, n, batch]; returns [n, batch]."""
+    m = [msgs[k] for k in range(msgs.shape[0])]
     d = len(m)
     st = _Stepper([first_lut] + list(rest_luts), m, vmax)
     s = st.step(0, ch, 0)

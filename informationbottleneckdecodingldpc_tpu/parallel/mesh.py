@@ -1,7 +1,7 @@
 """Mesh/sharding helpers for the Monte-Carlo engine.
 
 The reference is single-device (one PyOpenCL queue, SURVEY.md §2.3); the
-TPU-native scale-out axis is data parallelism over codewords and Monte-Carlo
+scale-out axis here is data parallelism over codewords and Monte-Carlo
 blocks: one ``jax.sharding.Mesh`` over all chips, the codeword batch sharded
 on axis ``'data'``, error/frame counters and the batch-global early-exit
 syndrome test reduced with ``psum`` so every shard stays in lockstep exactly
@@ -28,10 +28,10 @@ def initialize_multihost(
     """Join the multi-process JAX runtime (SURVEY.md §5 distributed backend).
 
     Wraps ``jax.distributed.initialize``: with no arguments the coordinator /
-    process topology is taken from the cluster environment (TPU pod metadata,
-    or JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID). After
+    process topology is taken from the cluster environment
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID). After
     this, ``jax.devices()`` spans every host's chips and :func:`make_mesh`
-    builds a global data-parallel mesh; counters psum over ICI/DCN.
+    builds a global data-parallel mesh; counters psum across every process's devices.
 
     Returns (process_index, process_count). Idempotent: a second call is a
     no-op (jax.distributed raises if already initialized).
@@ -44,11 +44,7 @@ def initialize_multihost(
     # the cluster with a cross-process collectives implementation; without
     # it each process sees a 1-process backend. Gate on JAX_PLATFORMS (not
     # jax.default_backend(), which would initialize backends too early).
-    # The config update mirrors tests/conftest.py: an externally installed
-    # accelerator plugin can ignore the env var alone and would otherwise
-    # become the default backend, leaving process_count() at 1.
     if "cpu" in os.environ.get("JAX_PLATFORMS", "").split(","):
-        jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
     try:

@@ -1,6 +1,6 @@
 """Monte-Carlo BER engine: sharded, jitted, resumable.
 
-TPU-native redesign of the reference's per-scenario simulation scripts
+Redesign of the reference's per-scenario simulation scripts
 (Regular_LDPC_Decoding/BPSK/BER_simulation_OpenCL.py:81-137 and the WLAN /
 DVB-S2 variants): the entire per-block pipeline — bit generation, encoding,
 AWGN, quantization, iterative decode, error counting — is one jitted step
@@ -90,15 +90,7 @@ class PointCheckpoint:
 
 
 class BERSimulator:
-    """Reusable, compiled BER simulator for one (code, decoder) pair.
-
-    Backend note: the HBM-resident Pallas kernels (``backend='hbm'``, or
-    ``'auto'`` on TPU for codes whose message views exceed VMEM) test
-    syndrome convergence per 128-codeword batch tile, not over the whole
-    (possibly sharded) batch, and ignore ``convergence_reduce`` — reported
-    mean iteration counts are therefore tile-granular and differ from the
-    XLA path's whole-batch lockstep numbers; BER is unaffected.
-    """
+    """Reusable, compiled BER simulator for one (code, decoder) pair."""
 
     def __init__(
         self,
@@ -118,7 +110,6 @@ class BERSimulator:
         early_exit: bool = True,
         encoder=None,
         seed: int = 0,
-        backend: str = "auto",  # 'auto' | 'xla' | 'fused' (ib) | 'hbm'
         steps_per_dispatch: int = 1,
         modulation: str = "bpsk",  # 'bpsk' | 'qam' | 'mpsk'
         mod_order: int = 2,  # sqrt(M) for QAM, M for MPSK
@@ -173,9 +164,9 @@ class BERSimulator:
                 k // 2 if modulation == "qam" else k
             )
         # Monte-Carlo steps executed per device dispatch (lax.scan): amortizes
-        # per-dispatch host->device latency, which dominates when one block is
-        # small relative to the link (the reference pays the same cost per
-        # block via its per-iteration syndrome readback, SURVEY.md §3.2). The
+        # the per-dispatch host round trip (launch + counter readback), which
+        # dominates when one block is small (the reference pays the same cost
+        # per block via its per-iteration syndrome readback, SURVEY.md §3.2). The
         # per-step key stream is fold_in(root, absolute_step), so counters are
         # independent of this value.
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
@@ -200,133 +191,12 @@ class BERSimulator:
                     "encoder has no device path for this code; use host "
                     "pre-encoding or the allzero chain"
                 )
-        # Fused Pallas kernels (TPU fast path). Per-batch-tile early exit
-        # instead of the XLA path's whole-batch lockstep — identical BER,
-        # fewer wasted iterations; bit-exact when early_exit is off.
-        # 'fused' = all-VMEM-resident views; 'hbm' = HBM-resident views with
-        # DMA-staged chunks (codes too large for VMEM, e.g. DVB-S2 N=64800);
-        # 'auto' picks fused > hbm > xla on TPU.
-        self._fused_decoder = None
-        if decoder == "ib" and backend != "xla":
-            from ..kernels.ib_lut_fused import FusedIBDecoder, pick_batch_tile
-            from ..kernels.ib_lut_hbm import HBMFusedIBDecoder, hbm_supported
-
-            bt = None
-            if trellis.host is not None:
-                bt = pick_batch_tile(
-                    layout,
-                    trellis.host.cardinality_t_decoder,
-                    min(128, self.batch_per_device),
-                )
-            if backend == "fused" and bt is None:
-                raise ValueError(
-                    "backend='fused' requested but the layout/tables do not "
-                    "support the all-VMEM fused kernel"
-                )
-            if backend == "hbm" and not (
-                trellis.host is not None and hbm_supported(layout)
-            ):
-                raise ValueError(
-                    "backend='hbm' requested but the layout routing does not "
-                    "run-decompose (or host tables are missing)"
-                )
-            kw = dict(max_iters=self.max_iters, early_exit=self.early_exit)
-            if backend == "fused":
-                self._fused_decoder = FusedIBDecoder(
-                    layout, trellis.host, batch_tile=bt, **kw
-                )
-            elif backend == "hbm":
-                self._fused_decoder = HBMFusedIBDecoder(
-                    layout, trellis.host, **kw
-                )
-            elif jax.default_backend() == "tpu" and trellis.host is not None:
-                if bt is not None:
-                    self._fused_decoder = FusedIBDecoder(
-                        layout, trellis.host, batch_tile=bt, **kw
-                    )
-                elif hbm_supported(layout):
-                    # Loud by design (round-3 verdict: auto must not stall
-                    # silently): the table-driven HBM kernel's one-time
-                    # Mosaic compile is ~5 min at DVB-S2 scale (cached in
-                    # JAX_COMPILATION_CACHE_DIR afterwards).
-                    print(
-                        "[engine] backend=auto selected the HBM-resident "
-                        "Pallas kernel for this code "
-                        f"(n_edges={layout.n_edges}); first compile takes "
-                        "minutes (one-time, cached). Use backend='xla' to "
-                        "skip.",
-                        flush=True,
-                    )
-                    self._fused_decoder = HBMFusedIBDecoder(
-                        layout, trellis.host, **kw
-                    )
-        # Float decoders: all-VMEM fused kernel for small codes (both views
-        # resident, like the IB fused path), DMA-staged HBM kernel for codes
-        # whose views exceed VMEM (DVB-S2 scale), XLA otherwise. 'auto'
-        # picks fused > hbm > xla on TPU.
-        if decoder in ("minsum", "bp") and backend in ("auto", "hbm", "fused"):
-            from ..kernels.float_fused import (
-                FusedFloatDecoder,
-                pick_float_batch_tile,
-            )
-            from ..kernels.float_hbm import HBMFloatDecoder
-            from ..kernels.ib_lut_hbm import hbm_supported
-
-            fbt = pick_float_batch_tile(
-                layout, min(128, self.batch_per_device)
-            )
-            if backend == "fused" and fbt is None:
-                raise ValueError(
-                    "backend='fused' requested but the layout does not fit "
-                    "the all-VMEM fused float kernel"
-                )
-            big = 2 * layout.n_edges * 128 * 4 > 100 * 1024 * 1024
-            if backend == "hbm" and not hbm_supported(layout):
-                raise ValueError(
-                    "backend='hbm' requested but the layout routing does not "
-                    "run-decompose into unit-stride runs"
-                )
-            if backend == "fused" or (
-                backend == "auto"
-                and jax.default_backend() == "tpu"
-                and fbt is not None
-            ):
-                self._fused_decoder = FusedFloatDecoder(
-                    layout,
-                    rule=decoder,
-                    max_iters=self.max_iters,
-                    early_exit=self.early_exit,
-                    batch_tile=fbt,
-                )
-            elif backend == "hbm" or (
-                jax.default_backend() == "tpu" and big and hbm_supported(layout)
-            ):
-                print(
-                    "[engine] backend=auto selected the HBM-resident float "
-                    f"kernel ({decoder}, n_edges={layout.n_edges}); first "
-                    "compile takes minutes (one-time, cached). Early exit "
-                    "is per-128-codeword batch tile (not whole-batch) and "
-                    "delayed one body (syndrome folded into the CN staging "
-                    "reads), so reported mean iterations differ from "
-                    "backend='xla'; BER is unaffected. Use backend='xla' "
-                    "to skip.",
-                    flush=True,
-                )
-                self._fused_decoder = HBMFloatDecoder(
-                    layout,
-                    rule=decoder,
-                    max_iters=self.max_iters,
-                    early_exit=self.early_exit,
-                )
-
         self._step = self._build_step()
         self._quant_cache: dict[float, DeviceQuantizerTables] = {}
 
     # ------------------------------------------------------------------
     def _decode(self, channel_input, convergence_reduce):
         if self.decoder == "ib":
-            if self._fused_decoder is not None:
-                return self._fused_decoder(channel_input)
             return ib_lut_decode(
                 self.layout,
                 self.trellis,
@@ -335,8 +205,6 @@ class BERSimulator:
                 early_exit=self.early_exit,
                 convergence_reduce=convergence_reduce,
             )
-        if self._fused_decoder is not None:
-            return self._fused_decoder(channel_input)
         fn = min_sum_decode if self.decoder == "minsum" else belief_propagation_decode
         return fn(
             self.layout,
@@ -487,27 +355,25 @@ class BERSimulator:
 
             def one(j, qt, sigma2):
                 key = jax.random.fold_in(root_key, step_index + j)
-                return self._step_body(key, offset, qt, sigma2, reduce)
+                err, ferr, iters = self._step_body(
+                    key, offset, qt, sigma2, reduce
+                )
+                # psum makes each step's counters replicated, the type of
+                # the scan carry that sums them (the early-exit while_loop
+                # already runs in lockstep via the psum'd convergence test).
+                return (
+                    jax.lax.psum(err, DATA_AXIS),
+                    jax.lax.psum(ferr, DATA_AXIS),
+                    jax.lax.psum(iters, DATA_AXIS) / self.n_devices,
+                )
 
-            err, ferr, iters = scanned(one, qt, sigma2)
-            # psum makes all three provably replicated across shards (the
-            # early-exit while_loop already runs in lockstep via the psum'd
-            # convergence test).
-            return (
-                jax.lax.psum(err, DATA_AXIS),
-                jax.lax.psum(ferr, DATA_AXIS),
-                jax.lax.psum(iters, DATA_AXIS) / self.n_devices,
-            )
+            return scanned(one, qt, sigma2)
 
         sharded = shard_map(
             shard_body,
             mesh=self.mesh,
             in_specs=(P(), P(), P(), P()),
             out_specs=(P(), P(), P()),
-            # Pallas calls (the fused kernel) don't annotate varying-across-
-            # mesh axes on their out_shapes; all outputs here are psum'd to
-            # replicated explicitly.
-            check_vma=False,
         )
         return jax.jit(sharded)
 

@@ -1,6 +1,6 @@
 // Native GF(2) batch kernels for LDPC encoding.
 //
-// TPU-native counterpart of the reference's Cython extension
+// Native counterpart of the reference's Cython extension
 // (Discrete_LDPC_decoding/GF2MatrixMul_c.pyx): sparse GF(2) mat-vec and
 // triangular substitution by column-wise XOR flips. Redesigned for batches:
 // each row's value for a whole batch of codewords is a contiguous vector of

@@ -165,7 +165,7 @@ def anchors_section():
 def main():
     out = ["# PARITY — BER curves at the reference operating points", ""]
     out += [
-        "All sweeps run on one TPU v5e chip via the unified CLI",
+        "All sweeps run through the unified CLI",
         "(`informationbottleneckdecodingldpc_tpu.cli.simulate`), full Monte-Carlo",
         "chains as in the reference scripts (encoded: random info bits -> GF(2)",
         "encode -> BPSK -> AWGN -> |T_ch|-level IB quantizer -> decode; error",
@@ -173,18 +173,8 @@ def main():
         "point). Raw points: `results/ber/*.json`, curves: `results/ber/*.png`.",
         "`±95%` is the relative 95% confidence half-width of the BER estimate",
         "(1.96/sqrt(errors)); regenerate everything with `python scripts/queue.py`.",
-        "",
-        "Reading the `coded Mbit/s` columns: each SNR point's throughput is",
-        "wall-clock over the WHOLE point, including the one-time per-point",
-        "quantizer construction and jit warm-up — at low SNR (few blocks to",
-        "reach min_errors) that setup dominates and the column under-reads",
-        "steady state by up to ~10x; high-SNR points (millions of blocks)",
-        "show the true steady-state rate. Steady-state numbers live in",
-        "`results/BENCH_MATRIX.json`. (The jump at high SNR is this",
-        "amortization, NOT decoder early exit: the |T|=16 IB decoder's",
-        "per-frame convergence tail keeps whole-batch/128-wide-tile exits",
-        "near i_max at every simulated SNR — see bench matrix",
-        "`wlan_ib_fused_highsnr`.)",
+        "The timing fields inside `results/ber/*.json` are not reported here",
+        "(see `results/README.md`).",
         "",
     ]
     out.append("## Near-threshold design points (1.05 dB regular / 0.6 dB DVB-S2)\n")
@@ -198,13 +188,12 @@ def main():
             continue
         curves[name] = pts
         out.append(f"## {title}\n")
-        out.append("| Eb/N0 (dB) | BER | ±95% | errors | FER | blocks | coded Mbit/s |")
-        out.append("|---|---|---|---|---|---|---|")
+        out.append("| Eb/N0 (dB) | BER | ±95% | errors | FER | blocks |")
+        out.append("|---|---|---|---|---|---|")
         for p in pts:
             out.append(
                 f"| {p['ebn0_db']:.1f} | {p['ber']:.3e} | ±{ci95(p)*100:.0f}% "
-                f"| {p['errors']} | {p['fer']:.3e} "
-                f"| {p['blocks']} | {p['coded_bits_per_s']/1e6:.1f} |"
+                f"| {p['errors']} | {p['fer']:.3e} | {p['blocks']} |"
             )
         out.append("")
 

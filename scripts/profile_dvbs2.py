@@ -1,18 +1,14 @@
-"""Component timing of the DVB-S2 N=64800 decode step on the real chip.
+"""Component timing of the DVB-S2 N=64800 decode step on the accelerator.
 
 Separates per-iteration decode cost into routing (to_vn/to_cn moves) vs node
 folds vs chain overhead (encode/quantize/RNG), to target the next
-optimization. Run with the chip idle.
+optimization. Run with the device otherwise idle.
 """
 
 import os
 import sys
 import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
@@ -21,12 +17,12 @@ import numpy as np
 
 
 def timed(fn, *args, reps=5):
-    np.asarray(jax.tree_util.tree_leaves(fn(*args))[0])  # compile
+    jax.block_until_ready(fn(*args))  # compile
     ts = []
     for _ in range(reps):
-        t0 = time.time()
-        np.asarray(jax.tree_util.tree_leaves(fn(*args))[0])
-        ts.append(time.time() - t0)
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        ts.append(time.perf_counter() - t0)
     return sorted(ts)[len(ts) // 2]
 
 
@@ -37,10 +33,18 @@ def main(batch=128):
         ib_lut_decode,
     )
     from informationbottleneckdecodingldpc_tpu.models import get_model
+    from informationbottleneckdecodingldpc_tpu.utils.compile_cache import (
+        REPO_ROOT,
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
 
     spec = get_model("dvbs2-64800")
     layout = spec.make_layout()
-    cfg = DecoderConfig.load("artifacts/configs/dvbs2_T16_0.6.npz")
+    cfg = DecoderConfig.load(
+        os.path.join(REPO_ROOT, "results", "configs", "dvbs2_T16_0.6.npz")
+    )
     trellis = DeviceTrellis.from_tables(cfg.tables)
     rng = np.random.default_rng(0)
     ch = jnp.asarray(rng.integers(0, 16, (layout.n_vars, batch)), jnp.int32)

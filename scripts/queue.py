@@ -3,14 +3,14 @@
 Stages (all idempotent / resumable — rerunning skips finished work):
 
   configs  - build every decoder-config artifact that is missing
-  sweeps   - run every BER parity sweep (sequential: one real TPU chip);
+  sweeps   - run every BER parity sweep (sequential: one accelerator);
              each sweep resumes from its results JSON
   extend   - reopen specific completed points to accumulate more errors
              (tail statistics, round-2 verdict #3): converts the completed
              point back into the engine's mid-point checkpoint — exact
              continuation since per-codeword RNG keys depend only on
              (seed, absolute step index)
-  bench    - scripts/bench_matrix.py (throughput matrix + roofline)
+  bench    - scripts/bench_matrix.py (throughput matrix)
   report   - scripts/make_parity_report.py (PARITY.md)
 
 Usage:
@@ -302,7 +302,7 @@ def main():
         guarded("extend", lambda: stage_extend(only))
     if "bench" in stages:
         guarded("bench", lambda: sh(
-            f"{PY} scripts/bench_matrix.py", log=f"{LOG_DIR}/bench_matrix.log"
+            f"{PY} scripts/bench_matrix.py --out artifacts/bench_matrix.json", log=f"{LOG_DIR}/bench_matrix.log"
         ))
     if "report" in stages:
         guarded("report", lambda: sh(f"{PY} scripts/make_parity_report.py"))

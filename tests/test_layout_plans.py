@@ -1,6 +1,6 @@
 """Structured-layout data-movement plans: strided runs, block transposes,
 edge-key slot ordering. These are what make the q-group (DVB-S2) routing
-gather-free on TPU (decode/graph_arrays.py)."""
+gather-free (decode/graph_arrays.py)."""
 
 import dataclasses
 

@@ -54,15 +54,29 @@ def test_ib_point_runs(small_setup):
     assert 0 < res.ber < 0.2
 
 
-@pytest.mark.parametrize("decoder", ["ib", "minsum"])
-def test_mesh_shape_invariance_exact(small_setup, decoder):
+@pytest.fixture(scope="module")
+def encoded_setup():
+    """A small regular (3,6) code whose parity part is invertible, so the
+    encoded chain can run on it."""
+    from informationbottleneckdecodingldpc_tpu.encode import LDPCEncoder
+
+    H = regular_parity_check(96, 3, 6, seed=10)
+    return DecodeLayout.from_graph(TannerGraph.from_check_matrix(H)), LDPCEncoder(H)
+
+
+@pytest.mark.parametrize("chain", ["allzero", "encoded"])
+@pytest.mark.parametrize("decoder", ["ib", "minsum", "bp"])
+def test_mesh_shape_invariance_exact(small_setup, encoded_setup, decoder, chain):
     """Same seed => bitwise-identical error counters regardless of how the
     global batch is split over the mesh (SURVEY.md §4.5). Per-codeword RNG
     keys are derived from the global codeword index, so 8x4, 2x16 and 1x32
-    decode exactly the same codewords."""
+    decode exactly the same codewords, and the psum'd early-exit test runs
+    them for the same number of iterations."""
     layout, trellis = small_setup
     assert len(jax.devices()) >= 8
-    kw = dict(chain="allzero", count_all_bits=True, seed=3)
+    kw = dict(chain=chain, count_all_bits=chain == "allzero", seed=3)
+    if chain == "encoded":
+        layout, kw["encoder"] = encoded_setup
     if decoder == "ib":
         kw["trellis"] = trellis
     else:
@@ -79,6 +93,7 @@ def test_mesh_shape_invariance_exact(small_setup, decoder):
         assert runs[n_dev].blocks == ref.blocks
         assert runs[n_dev].errors == ref.errors, f"mesh {n_dev}x differs"
         assert runs[n_dev].frame_errors == ref.frame_errors
+        assert runs[n_dev].mean_iterations == ref.mean_iterations
 
 
 def test_sweep_persists_and_resumes(small_setup, tmp_path):
@@ -171,34 +186,6 @@ def test_midpoint_checkpoint_resume_exact(small_setup, tmp_path):
     assert resumed.errors == full.errors
     assert resumed.blocks == full.blocks
     assert resumed.frame_errors == full.frame_errors
-
-
-def test_fused_backend_under_shard_map():
-    """The flagship multi-chip configuration: fused Pallas kernel (interpret
-    mode off-TPU) inside shard_map over an 8-device mesh. Counters must match
-    the XLA backend exactly (early_exit off => bit-exact decode)."""
-    from informationbottleneckdecodingldpc_tpu.codes import regular_qc_parity_check
-    from informationbottleneckdecodingldpc_tpu.construct import build_decoder_config
-
-    assert len(jax.devices()) >= 8
-    H = regular_qc_parity_check(96, 3, 6, seed=7)
-    layout = DecodeLayout.from_graph(TannerGraph.from_check_matrix(H))
-    cfg = build_decoder_config(
-        design_ebn0_db=2.0, cardinality_y_channel=400, cardinality_t_channel=16,
-        cardinality_t_decoder=16, i_max=4, d_v=3, d_c=6,
-    )
-    trellis = DeviceTrellis.from_tables(cfg.tables)
-    mk = lambda backend: BERSimulator(
-        layout, "ib", trellis=trellis, chain="allzero", count_all_bits=True,
-        batch_per_device=8, n_devices=8, seed=5, backend=backend,
-        early_exit=False,
-    )
-    sim_fused = mk("fused")
-    assert sim_fused._fused_decoder is not None
-    r_fused = sim_fused.run_point(2.0, min_errors=1, max_blocks=64)
-    r_xla = mk("xla").run_point(2.0, min_errors=1, max_blocks=64)
-    assert r_fused.errors == r_xla.errors
-    assert r_fused.frame_errors == r_xla.frame_errors
 
 
 def test_multihost_flag_single_process(tmp_path):
